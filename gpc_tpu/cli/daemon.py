@@ -1,8 +1,8 @@
 """Warm-process daemon for the gp/ivm/gplvm CLIs.
 
-The reference binaries pay ~40 ms of process startup; a JAX CLI pays ~2.2 s
+The reference binaries pay ~40 ms of process startup; a JAX CLI pays seconds
 of interpreter + `import jax` plus trace/lower time on EVERY invocation —
-the dominant cost at tutorial sizes (BASELINE.md round-2 column).  This
+the dominant cost at tutorial sizes.  This
 daemon keeps one warm Python/JAX process alive behind a unix socket; the
 client (stdlib-only, no jax import — ~50 ms) forwards argv and receives the
 command's captured stdout/stderr when it completes (output is buffered, not
@@ -17,6 +17,12 @@ Usage:
 The daemon is an opt-in convenience for interactive/repeated use and
 benchmarking; model files, seeds and outputs are identical to the one-shot
 CLIs (each request runs the same `main(argv)` with its own seed handling).
+
+One process per card: a JAX process reserves most of a GPU's memory when it
+first uses it, so while the daemon serves, it owns the card, and a one-shot
+CLI started beside it on the same card fails for want of memory.  Run every
+CLI command on that card through the daemon (GPC_TPU_DAEMON=1 or
+`daemon run`) until `daemon stop`.
 Protocol: 4-byte big-endian length + JSON {tool, argv, cwd} / {rc, out, err}.
 The server exits after GPC_TPU_DAEMON_IDLE seconds (default 900) without a
 request.  Requests are handled strictly one at a time.

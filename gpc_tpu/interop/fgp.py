@@ -3,7 +3,7 @@
 The reference ships a MATLAB mex gateway holding ONE global CGp model with
 four commands — train / retrain / query / clear — used for embedding GP
 regression in a larger MATLAB program (reference README.md:805-819).  The
-TPU-native equivalent is this module-level API (callable from Python or via
+JAX equivalent is this module-level API (callable from Python or via
 the dispatch function `fgp(command, *args)`), with the same semantics:
 
 * ``train(kernels, X, Y, verbose=1)`` — kernels is the mex's letter string

@@ -1,6 +1,6 @@
-"""Compositional covariance-function DSL, vectorized for the MXU.
+"""Compositional covariance-function DSL, vectorized as batched matmuls.
 
-TPU-native counterpart of the reference's `CKern.{h,cpp}` (CKern.h:36-1229).  The
+JAX counterpart of the reference's `CKern.{h,cpp}` (CKern.h:36-1229).  The
 reference evaluates kernels through per-element virtual calls in O(N²) loops
 (CKern.h:120-144, the hot-loop anti-pattern flagged in CGp.cpp:693-735); here each
 kernel is *static metadata* plus a pure tile function over whole cross-covariance
@@ -296,7 +296,7 @@ class Exp(Kern):
     def compute(self, p, X1, X2):
         # dtype-aware sqrt guard: 1e-300 underflows to 0 in f32, and
         # sqrt(0)'s infinite derivative turns coincident-point cotangents
-        # into NaN on the TPU f32 training path (safe-INPUT discipline)
+        # into NaN on the f32 training path (safe-INPUT discipline)
         d2 = dist2(X1, X2)
         r = jnp.sqrt(d2 + jnp.finfo(jnp.result_type(d2)).tiny)
         return p[1] * jnp.exp(-p[0] * r)

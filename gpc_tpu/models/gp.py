@@ -1,12 +1,12 @@
 """Full and sparse Gaussian-process regression (FTC / DTC / DTCVAR / FITC).
 
-TPU-native counterpart of the reference's `CGp.{h,cpp}`.  The reference maintains
+JAX counterpart of the reference's `CGp.{h,cpp}`.  The reference maintains
 mutable caches behind a 4-level dirty-flag protocol (CGp.h:281-326) and ~1,500
 lines of hand-derived gradient algebra (gpCovGrads, CGp.cpp:1244-1413); here the
 negative log marginal likelihood is ONE pure jitted function of the unconstrained
 parameter vector and `jax.grad` supplies every hyperparameter / inducing-input /
-beta gradient.  All dense algebra (Gram tiles, Cholesky, triangular solves) maps
-onto the MXU; there are no explicit matrix inverses.
+beta gradient.  All dense algebra (Gram tiles, Cholesky, triangular solves)
+stays on the device; there are no explicit matrix inverses.
 
 Parameter-vector layout reproduces CGp::getOptParams (CGp.cpp:330-385):
   [X_u column-major (if sparse & !inducing_fixed)]
@@ -118,7 +118,7 @@ def _pitc_whitened(spec: GpSpec, kp, beta, X, m, K_uf, L_uu):
     """Shared PITC block assembly for evidence AND serving: the correction
     D = blockdiag(I + β·(K_bb − Q_bb)) applied via batched Cholesky solves,
     all block algebra batched over the leading P axis (vmapped Gram +
-    batched triangular solves — MXU-friendly uniform shapes, ragged tail
+    batched triangular solves — uniform shapes, ragged tail
     handled by identity padding).  Returns (Am, e, Cb, sMb): the
     L_uu-whitened Am = I/β + W̃·W̃ᵀ, its whitened RHS e, the batched block
     factors Cb (their log-diagonals are the evidence's Σ_b logdet D_b), and
@@ -163,14 +163,10 @@ def log_likelihood(spec: GpSpec, theta, X, y, bias, fixed_scales,
     N, D = spec.n_data, spec.output_dim
 
     if spec.approx == FTC:
-        # GPC_TPU_EVIDENCE=lazy|panel|iterative routes the FTC hot block
-        # through the fused lazy factorization (f32-HIGH autodiff — the
-        # training fast path), the Pallas panel mega-kernel (the forward
-        # fast path), or the matrix-free CG+SLQ engine (past dense-HBM N).
-        # An explicit flag always wins; with the flag unset
-        # select_evidence_mode keeps dense up to DENSE_SAFE_N and
-        # auto-lazies only past it on TPU (the dense N-wide solve crashes
-        # the TPU compile helper at N≳16k) — ops/evidence_mode.py.
+        # GPC_TPU_EVIDENCE=lazy|iterative routes the FTC hot block through
+        # the fused lazy factorization (autodiff through the blocked
+        # schedule) or the matrix-free CG+SLQ engine (past dense memory);
+        # unset, the dense engine runs (ops/evidence_mode.py).
         from gpc_tpu.ops.evidence_mode import select_evidence_mode
         mode = select_evidence_mode(N)
         if mode == "lazy":
@@ -181,12 +177,6 @@ def log_likelihood(spec: GpSpec, theta, X, y, bias, fixed_scales,
             from gpc_tpu.ops.iterative import kern_evidence_iterative
             logdetK, quad = kern_evidence_iterative(spec.kern, kp,
                                                     jnp.asarray(X), m)
-        elif mode == "panel":
-            # the Pallas panel mega-kernel as a product engine: bias/white
-            # Sherman-Morrison split + ragged-N padding (ops/panel_engine.py)
-            from gpc_tpu.ops.panel_engine import kern_evidence_panel
-            logdetK, quad = kern_evidence_panel(spec.kern, kp,
-                                                jnp.asarray(X), m)
         else:
             K = spec.kern.gram(kp, X)
             logdetK, quad, _L = linalg.evidence_terms(K, m)
@@ -287,8 +277,8 @@ def posterior_state(spec: GpSpec, theta, X, y, bias, fixed_scales,
     the serving decomposition (CGp recomputes updateAlpha lazily via dirty
     flags, CGp.cpp:469-534; here the state is an explicit pytree a server
     holds on-device).  `explicit_inverse` stores L⁻¹ (blocked inversion) so
-    every FTC per-batch variance solve is a pure MXU GEMM instead of an
-    N-wide triangular solve."""
+    every FTC per-batch variance solve is a GEMM instead of an N-wide
+    triangular solve."""
     X_u, kp, scales, beta = spec.unpack(theta)
     if X_u is None and spec.sparse:
         X_u = jnp.asarray(X_u_fixed)

@@ -1,7 +1,7 @@
 """GP-LVM / GPDM: Gaussian-process latent variable model with back constraints
 and Wang-style dynamics.
 
-TPU-native counterpart of the reference's `CGplvm.{h,cpp}`.  The latent
+JAX counterpart of the reference's `CGplvm.{h,cpp}`.  The latent
 coordinates X (or back-constraint coefficients A with X = bK·A) live inside the
 optimizer parameter vector (CGplvm.cpp:257-330 — note the ordering differs from
 CGp: kernel params come FIRST here), and the whole objective —
@@ -135,15 +135,12 @@ def log_likelihood(spec: GplvmSpec, theta, y, noise_bias, fixed_scales,
     m = (jnp.asarray(y) - jnp.asarray(noise_bias)[None, :]) / scales[None, :]
     N, D, q = spec.n_data, spec.data_dim, spec.latent_dim
 
-    # Large-N fast paths (the reference GP-LVM stops at ~1k points,
+    # Large-N paths (the reference GP-LVM stops at ~1k points,
     # README.md:412-414): GPC_TPU_EVIDENCE selects the evidence engine
-    # (ops/evidence_mode.py); an explicit flag always wins, and with the
-    # flag unset select_evidence_mode keeps dense up to DENSE_SAFE_N and
-    # auto-lazies only past it on TPU:
-    #   dense     — jitchol escalation, the CPU/parity route;
+    # (ops/evidence_mode.py):
+    #   dense     — jitchol escalation, the default and the parity route;
     #   lazy      — Gram tiles fused into the blocked factorization
-    #               (ops/lazy_evidence), differentiable via autodiff;
-    #   panel     — the Pallas panel mega-kernel (ops/panel_engine);
+    #               (ops/lazy_evidence), differentiable via autodiff, opt-in;
     #   iterative — matrix-free CG + SLQ (ops/iterative.py), opt-in only.
     # On the lazy path a transiently non-PD K yields a NaN objective, which
     # SCG rejects as a failed step (λ growth — optim/scg.py NaN handling)
@@ -160,12 +157,6 @@ def log_likelihood(spec: GplvmSpec, theta, y, noise_bias, fixed_scales,
         # custom VJP (ops/iterative.py), never materializing the N×N Gram
         from gpc_tpu.ops.iterative import kern_evidence_iterative
         logdet, quad = kern_evidence_iterative(spec.kern, kp, X, m)
-        Lacc = quad + D * logdet
-    elif mode == "panel":
-        # the Pallas panel mega-kernel engine (ops/panel_engine.py) — X̄
-        # flows through its custom VJP, so GP-LVM objectives differentiate
-        from gpc_tpu.ops.panel_engine import kern_evidence_panel
-        logdet, quad = kern_evidence_panel(spec.kern, kp, X, m)
         Lacc = quad + D * logdet
     else:
         K = spec.kern.gram(kp, X)

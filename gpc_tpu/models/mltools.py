@@ -1,6 +1,6 @@
 """Auxiliary mapping models: linear and one-hidden-layer MLP regression.
 
-TPU-native counterpart of the reference's `CMltools.{h,cpp}` (CMltools.h:34-209):
+JAX counterpart of the reference's `CMltools.{h,cpp}` (CMltools.h:34-209):
 CLinearMapping (y = Wᵀx + b) and CMlpMapping (y = W2ᵀtanh(W1ᵀx + b1) + b2),
 both with a fixed Gaussian output variance (=1) and the reference's likelihood
 L = −½[Σᵢ‖f(xᵢ)−yᵢ‖²/σ² + N·(log2π + log σ²)] (CMltools.cpp:229-246 — note the

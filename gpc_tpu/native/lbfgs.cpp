@@ -1,6 +1,6 @@
 // Limited-memory BFGS with the Moré-Thuente line search, reverse communication.
 //
-// TPU-native counterpart of the reference's Fortran LBFGS + MCSRCH/MCSTEP
+// C++ counterpart of the reference's Fortran LBFGS + MCSRCH/MCSTEP
 // (reference ndlfortran.f:8-1153, driven via reverse communication from
 // COptimisable::lbfgsOptimise, COptimisable.cpp:185-245).  Same architecture:
 // the optimizer is native code holding the curvature history; the caller owns

@@ -1,6 +1,6 @@
 """Special functions with the log-domain stability tricks the likelihoods rely on.
 
-TPU-native counterpart of the reference's `ndlutil.{h,cpp}` + Cody's CALERF Fortran
+JAX counterpart of the reference's `ndlutil.{h,cpp}` + Cody's CALERF Fortran
 (reference: ndlutil.cpp:9-167, ndlfortran.f:1374-1713).  The probit / NCNM / ordered
 noise models are numerically viable only because Φ, log Φ, N/Φ and log(Φ(u)−Φ(u'))
 are evaluated through the *scaled* complementary error function erfcx in the tails;
@@ -8,7 +8,7 @@ this module reproduces those branch structures exactly (ndlutil.cpp:29-92) as
 vectorized, differentiable jnp expressions.
 
 Everything here is dtype-polymorphic: float64 for parity tests, float32/bfloat16 on
-the TPU fast path (erfcx switches to an asymptotic tail earlier in float32).
+the float32 path (erfcx switches to an asymptotic tail earlier in float32).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Noise models (likelihoods): gaussian / scale / probit / ncnm / ordered.
 
-TPU-native counterpart of the reference's `CNoise.{h,cpp}` (CNoise.h:30-299).
+JAX counterpart of the reference's `CNoise.{h,cpp}` (CNoise.h:30-299).
 Each model is static metadata plus pure vectorized functions over the posterior
 moments (mu, varsigma) and targets y:
 

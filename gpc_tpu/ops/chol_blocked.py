@@ -1,20 +1,21 @@
-"""Recursive blocked Cholesky and triangular solve — MXU-shaped factorization.
+"""Recursive blocked Cholesky and triangular solve — GEMM-shaped factorization.
 
 The O(N³) Cholesky dominates every full-GP evidence evaluation (bench.py).
-XLA ships a TPU cholesky, but its internal panel width is fixed; this module
-provides a divide-and-conquer factorization whose work lands almost entirely
-in large static-shape GEMMs:
+This module provides a divide-and-conquer factorization whose work lands
+almost entirely in large static-shape GEMMs:
 
     chol([[A11, ·], [A21, A22]]):
         L11 = chol(A11)
         L21 = A21 · L11⁻ᵀ          (triangular solve, itself recursive)
-        L22 = chol(A22 − L21·L21ᵀ) (syrk on the MXU)
+        L22 = chol(A22 − L21·L21ᵀ) (syrk as a GEMM)
 
 Recursion is unrolled at trace time (static shapes, log₂(N/base) levels), so
 the compiled graph is a fixed schedule of matmuls + base-case factorizations.
-Used opportunistically: `cholesky(A)` picks the recursive path for large
-power-of-two-friendly sizes and defers to jnp.linalg.cholesky otherwise —
-numerics are identical up to reassociation (same algorithm, different blocking).
+`cholesky(A)` takes the recursive path only when forced; otherwise it defers
+to jnp.linalg.cholesky, which beats it on the GPU (cuSOLVER, PERF.md) —
+numerics are identical up to reassociation (same algorithm, different
+blocking).  The lazy-Gram engines
+(ops/lazy_evidence, ops/evidence_fast) build on these pieces.
 """
 
 from __future__ import annotations
@@ -25,36 +26,14 @@ import jax.numpy as jnp
 from jax import lax
 from jax.scipy.linalg import solve_triangular
 
-BASE = 256  # best measured total at N=16k (39 ms vs 41.7 at 512, 55.5 at 2048)
+BASE = 256  # leaf block of the recursion (GPC_TPU_EVIDENCE_BASE overrides it
+            # for the lazy engine, ops/evidence_mode.evidence_base)
 
 # Mixed precision: run the O(N³) GEMM updates (syrk + panel-solve matmuls) with
-# bf16 inputs and f32 accumulation — ~2× MXU throughput at a ~1e-3 relative
-# perturbation of the factor.  For f32 TPU speed runs where the kernel's white
-# noise dwarfs bf16 rounding; never for f64 parity.
+# bf16 inputs and f32 accumulation, at a ~1e-3 relative perturbation of the
+# factor.  For f32 speed experiments where the kernel's white noise dwarfs
+# bf16 rounding; never for f64 parity.
 BF16_UPDATES = os.environ.get("GPC_TPU_BF16_CHOL", "0") == "1"
-
-# MAGMA-style fast path: factor each BASE-sized diagonal block with the Pallas
-# in-VMEM kernel that ALSO returns the block's triangular inverse
-# (ops/chol_pallas.chol_inv_block).  Every triangular solve against a leaf
-# then becomes a plain GEMM on the MXU, removing both XLA's per-cholesky
-# ~ms floor and its triangular_solve floor from the critical path.  Forward
-# only (pallas_call has no VJP here) — bench/prediction paths, not training
-# autodiff.  Opt-in, like the other speed knobs.
-PALLAS_BASE = os.environ.get("GPC_TPU_PALLAS_BASE", "0") == "1"
-
-
-# TPU matmul precision for the f32 update GEMMs.  XLA's DEFAULT lowers f32
-# dots to single-pass bf16 on TPU — relative errors ~4e-3 per trailing Schur
-# update, which EXCEEDS a typical GP noise ridge (1e-2) at N=16k scale and
-# makes the factorization silently non-PD (NaN factor).  HIGH (bf16_3x,
-# ~f32-quality error at ~3× bf16 cost) is the correct default for a Cholesky;
-# HIGHEST (full f32, 6 passes) available for the cautious, DEFAULT for speed
-# measurements only.
-_PRECISION = {
-    "default": lax.Precision.DEFAULT,
-    "high": lax.Precision.HIGH,
-    "highest": lax.Precision.HIGHEST,
-}[os.environ.get("GPC_TPU_CHOL_PRECISION", "high")]
 
 
 def _mm(a, b, transpose_b=False):
@@ -63,9 +42,8 @@ def _mm(a, b, transpose_b=False):
     if BF16_UPDATES and a.dtype == jnp.float32:
         return lax.dot_general(a.astype(jnp.bfloat16), b.astype(jnp.bfloat16),
                                dims, preferred_element_type=jnp.float32)
-    prec = _PRECISION if a.dtype == jnp.float32 else lax.Precision.HIGHEST
-    return lax.dot_general(a, b, dims, preferred_element_type=a.dtype,
-                           precision=prec)
+    # precision follows jax_default_matmul_precision (gpc_tpu/__init__.py)
+    return lax.dot_general(a, b, dims, preferred_element_type=a.dtype)
 
 
 def _tri_solve_rt(B, L):
@@ -86,14 +64,7 @@ def _tri_solve_rt(B, L):
 
 
 def _base_chol(A):
-    """Base-case factorization.
-
-    Measured (v5e, N=16k, BASE=256): an isolated XLA cholesky costs ~1.3 ms and
-    the Pallas in-VMEM kernel (ops/chol_pallas.py) 0.7 ms — but embedded in the
-    recursion XLA's base overlaps with the surrounding GEMMs and wins end to
-    end (39.0 ms vs 42.5 ms total), so XLA stays the default; the Pallas kernel
-    remains available for standalone use.
-    """
+    """Base-case factorization: the library cholesky on a leaf block."""
     return jnp.linalg.cholesky(A)
 
 
@@ -112,16 +83,9 @@ def _chol_recursive(A):
 
 
 def cholesky(A, force: bool = False):
-    """Lower Cholesky; recursive blocked path on TPU when the size splits
-    cleanly (~2× XLA's TPU cholesky at N=16k).  CPU keeps LAPACK's."""
-    import jax
-
-    n = A.shape[-1]
-    on_tpu = jax.default_backend() != "cpu"
-    if A.ndim == 2 and (force or (on_tpu and n > 2 * BASE and n % BASE == 0)):
-        if PALLAS_BASE:
-            L, _inv, _v = _chol_solve_leafinv(A, jnp.zeros((n, 1), A.dtype))
-            return L
+    """Lower Cholesky: the recursive blocked schedule when forced, else the
+    library factorization."""
+    if A.ndim == 2 and force:
         return _chol_recursive(A)
     return jnp.linalg.cholesky(A)
 
@@ -149,60 +113,11 @@ def _chol_solve_recursive(A, b):
     return jnp.concatenate([top, bot], axis=0), jnp.concatenate([v1, v2], axis=0)
 
 
-# ---------------------------------------------------------------------------
-# Leaf-inverse (MAGMA dtrtri) fast path: GPC_TPU_PALLAS_BASE=1
-# ---------------------------------------------------------------------------
-
-def _leaf_interpret():
-    import jax
-    return jax.default_backend() == "cpu"  # Pallas interpret mode off-TPU
-
-
-def _solve_rt_leafinv(B, L, inv):
-    """X·Lᵀ = B with `inv` the nested tuple of leaf-block inverses of L."""
-    n = L.shape[0]
-    if n <= BASE:
-        return _mm(B, inv, transpose_b=True)  # X = B·L⁻ᵀ
-    h = n // 2
-    X1 = _solve_rt_leafinv(B[:, :h], L[:h, :h], inv[0])
-    X2 = _solve_rt_leafinv(B[:, h:] - _mm(X1, L[h:, :h], transpose_b=True),
-                           L[h:, h:], inv[1])
-    return jnp.concatenate([X1, X2], axis=1)
-
-
-def _chol_solve_leafinv(A, b):
-    """Fused (L, leaf-inverse tree, v = L⁻¹b) recursion — as
-    `_chol_solve_recursive` but every leaf factorization emits its inverse
-    so all triangular solves (panel and RHS) run as GEMMs."""
-    from gpc_tpu.ops.chol_pallas import chol_inv_block
-
-    n = A.shape[0]
-    if n <= BASE:
-        L, M = chol_inv_block(A, interpret=_leaf_interpret())
-        return L, M, _mm(M, b)
-    h = n // 2
-    L11, inv1, v1 = _chol_solve_leafinv(A[:h, :h], b[:h])
-    L21 = _solve_rt_leafinv(A[h:, :h], L11, inv1)
-    L22, inv2, v2 = _chol_solve_leafinv(
-        A[h:, h:] - _mm(L21, L21, transpose_b=True), b[h:] - _mm(L21, v1))
-    top = jnp.concatenate([L11, jnp.zeros((h, n - h), A.dtype)], axis=1)
-    bot = jnp.concatenate([L21, L22], axis=1)
-    return (jnp.concatenate([top, bot], axis=0), (inv1, inv2),
-            jnp.concatenate([v1, v2], axis=0))
-
-
 def evidence_fused(K, m, force: bool = False):
     """(logdet K, Σⱼ mⱼᵀK⁻¹mⱼ, L) in one fused blocked sweep — the hot block
     of CGp::logLikelihood (CGp.cpp:920-937) without a separate solve pass."""
-    import jax
-
-    n = K.shape[-1]
-    on_tpu = jax.default_backend() != "cpu"
-    if force or (on_tpu and n > 2 * BASE and n % BASE == 0):
-        if PALLAS_BASE:
-            L, _inv, v = _chol_solve_leafinv(K, m)
-        else:
-            L, v = _chol_solve_recursive(K, m)
+    if force:
+        L, v = _chol_solve_recursive(K, m)
     else:
         L = jnp.linalg.cholesky(K)
         v = solve_triangular(L, m, lower=True)

@@ -1,31 +1,30 @@
-"""Mixed-precision fused lazy-Gram Cholesky evidence — the bench hot path.
+"""Mixed-precision fused lazy-Gram Cholesky evidence.
 
 The pipeline is the hot block of CGp::logLikelihood (CGp.cpp:920-937):
     K = kernel-Gram(X);  L = chol(K + noise·I);  logdet K + Σⱼ mⱼᵀK⁻¹mⱼ.
-This module is the speed-of-light variant of ops/lazy_evidence.py: a
+This module is the GEMM-heavy variant of ops/lazy_evidence.py: a
 left-looking blocked factorization where
 
-  * Gram tiles materialize lazily inside the recursion (no N² HBM pass),
-  * the O(N³) Schur-correction and panel-solve GEMMs run with **bf16 inputs
-    and f32 accumulation** (1-pass MXU, ~3× the bf16_3x "HIGH" f32 rate),
-  * finished L21 panels are stored bf16 once, so later corrections read
-    half the HBM bytes,
+  * Gram tiles materialize lazily inside the recursion (no N² pass through
+    device memory),
+  * the O(N³) Schur-correction and panel-solve GEMMs can run with **bf16
+    inputs and f32 accumulation** (`Policy.bf16`),
+  * finished L21 panels are stored bf16 once under that policy, so later
+    corrections read half the bytes,
   * every block's correction against ALL its ancestors is ONE stacked GEMM
     (panels concatenated along the contraction axis) instead of one GEMM per
-    ancestor — big static shapes the MXU tiles well,
-  * diagonal leaves factor in VMEM with the Pallas chol+inverse kernel
-    (ops/chol_pallas.chol_inv_block), so triangular solves against leaves are
-    plain GEMMs and XLA's per-cholesky / per-triangular-solve floors leave
-    the critical path,
+    ancestor,
+  * diagonal leaves can return their explicit inverse (`Policy.leafinv`), so
+    triangular solves against leaves become plain GEMMs,
   * only (logdet, quad) survive: L is never assembled, so XLA elides every
     O(N²) concatenation.
 
 Numerical domain: 1-pass bf16 updates carry ~4e-3 relative error into the
 Schur complements.  That is safe when the factorization is well conditioned
 relative to bf16 rounding (kernel matrices with a noise ridge well above
-~1e-2·K_ii, or fast-decaying off-diagonals); it is NOT a parity path.  Parity
-and training autodiff keep the f64/f32-HIGH routes (ops/lazy_evidence.py,
-models/gp.py).  Forward-only (pallas_call leaves have no VJP here).
+~1e-2·K_ii, or fast-decaying off-diagonals); it is NOT a parity path.  With
+`bf16=False` the schedule is plain jnp and differentiable (the lazy engine
+of models/gp.py and models/gplvm.py runs it that way).
 
 Reference: the factorization replaces dpotrf_ + dtrsv (CMatrix.cpp:371-412,
 CGp.cpp:920-937); the explicit leaf inverse mirrors the reference's own
@@ -34,15 +33,11 @@ dpotri explicit-inverse habit (CMatrix.cpp:421-442) at leaf scope only.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
-import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.scipy.linalg import solve_triangular
-
-from gpc_tpu.ops.chol_pallas import chol_inv_block
 
 
 class Policy(NamedTuple):
@@ -51,11 +46,9 @@ class Policy(NamedTuple):
     bf16: bool = True     # bf16-input/f32-accum update & panel GEMMs
     # leaf inverse mode — with an explicit L_leaf⁻¹ every panel solve becomes
     # a GEMM (the MAGMA dtrtri trick; the reference's own dpotri habit,
-    # CMatrix.cpp:421-442).  False: plain XLA chol + triangular solves
-    # (differentiable).  "pallas": one in-VMEM kernel returns (L, L⁻¹).
-    # "xla": XLA chol + trsm-vs-identity (differentiable, no Pallas).
-    # True is accepted as an alias of "pallas".
-    leafinv: object = "pallas"
+    # CMatrix.cpp:421-442).  "xla": library chol + trsm-vs-identity.
+    # False: library chol + triangular solves.  Both differentiable.
+    leafinv: object = "xla"
     stack: bool = True    # one stacked corr GEMM per block vs one per ancestor
     # prestack: keep the ancestor corrections as ONE contiguous array per
     # subtree, concatenated ONCE at each recursion node instead of re-stacked
@@ -65,9 +58,8 @@ class Policy(NamedTuple):
     # copies.  Implies `stack` semantics.
     prestack: bool = False
     # panelhalf (evidence_flat only): materialize the corrected panel R in
-    # bf16 between the correction dot and the panel solve — half the HBM
-    # bytes, at ~10× the drift of plain bf16 updates (measured 5.9e-3 quad
-    # at N=1024 vs 4.2e-4; still inside the bench's 1e-2 gate, but opt-in)
+    # bf16 between the correction dot and the panel solve — half the bytes,
+    # at ~10× the drift of plain bf16 updates (opt-in)
     panelhalf: bool = False
 
 
@@ -80,14 +72,8 @@ def _mmp(a, b, transpose_b=False, *, bf16):
     if bf16:
         return lax.dot_general(a.astype(jnp.bfloat16), b.astype(jnp.bfloat16),
                                dims, preferred_element_type=jnp.float32)
-    prec = (lax.Precision.HIGH if a.dtype == jnp.float32
-            else lax.Precision.HIGHEST)
-    return lax.dot_general(a, b, dims, preferred_element_type=a.dtype,
-                           precision=prec)
-
-
-def _interpret():
-    return jax.default_backend() == "cpu"  # Pallas interpret mode off-TPU
+    # precision follows jax_default_matmul_precision (gpc_tpu/__init__.py)
+    return lax.dot_general(a, b, dims, preferred_element_type=a.dtype)
 
 
 # A factor is a nested tree:  leaf -> ("leaf", L_f32, inv_or_None)
@@ -98,10 +84,10 @@ def _interpret():
 
 def _leaf(A, b, pol: Policy):
     """Factor one diagonal leaf; returns (tree, v = L⁻¹b, Σ log diag L)."""
-    mode = "pallas" if pol.leafinv is True else pol.leafinv
-    if mode == "pallas":
-        L, M = chol_inv_block(A, interpret=_interpret())
-    elif mode == "xla":
+    if pol.leafinv not in (False, "xla"):
+        raise ValueError(f"Policy.leafinv={pol.leafinv!r} (want False or "
+                         f"'xla')")
+    if pol.leafinv == "xla":
         L = jnp.linalg.cholesky(A)
         M = solve_triangular(L, jnp.eye(A.shape[0], dtype=A.dtype),
                              lower=True)
@@ -158,7 +144,7 @@ def _chol_left(kfn, n, b, corr, pol: Policy):
 
     All offsets are trace-time constants (recursion unrolled; the emitted
     graph is a fixed schedule of GEMMs + leaf kernels).  Trace-time op count
-    grows O((n/base)² log(n/base)) without `stack` — see ADVICE r1 — and
+    grows O((n/base)² log(n/base)) without `stack`, and
     O((n/base)²) with it.
     """
     if n <= pol.base:
@@ -221,7 +207,7 @@ def evidence_flat(kfn, n, m, pol: Policy = DEFAULT):
 
     The `stack` schedule concatenates every block's ancestor panels before
     its correction GEMM: a read+write+re-read of ~N³/(3·base) panel bytes
-    that triples the ancestor-stream HBM traffic (the round-2 residual the
+    that triples the ancestor-stream memory traffic (the round-2 residual the
     mega-kernel failed to remove).  Here finished columns land in a single
     (n, n) buffer (bf16 under the policy) via static-index
     dynamic_update_slice — in place under XLA buffer reuse, since each
@@ -236,9 +222,8 @@ def evidence_flat(kfn, n, m, pol: Policy = DEFAULT):
                      Lbuf[(j+1)b:, jb:(j+1)b] ← L21
 
     Ancestor bytes stream exactly once per use (N³/(3·base) total, halved
-    again by bf16 storage), and the per-column correction is one big
-    MXU-friendly dot instead of a per-ancestor or per-block loop.
-    Differentiable for leafinv in (False, "xla")."""
+    again by bf16 storage), and the per-column correction is one big dot
+    instead of a per-ancestor or per-block loop.  Differentiable."""
     b = pol.base
     nb = n // b
     assert n % b == 0 and nb >= 2

@@ -1,31 +1,23 @@
 """Evidence-engine selection: the ONE resolution point for GPC_TPU_EVIDENCE.
 
-Round-5 state (VERDICT r4 ask #8 — engine-surface pruning): the framework
-ships FOUR documented evidence engines, each with one job:
+The framework ships three evidence engines, each with one job:
 
   dense     — jitchol escalation (linalg.py), f64-capable: the PARITY route
-              and the universal default up to DENSE_SAFE_N.
+              and the default at every N.
   lazy      — Gram tiles fused into the blocked factorization
               (ops/lazy_evidence + ops/evidence_fast), differentiable via
-              plain autodiff: the measured TRAINING fast path
-              (GPLVM-16k 141 ms/step) and the default past DENSE_SAFE_N on
-              TPU when N splits.
-  panel     — the Pallas panel mega-kernel as a product engine
-              (ops/panel_engine): the measured FORWARD-evidence fast path
-              (bench winner), trainable through an analytic custom VJP at
-              explicit-K⁻¹ cost.
-  iterative — matrix-free CG + SLQ (ops/iterative): O(N·block) memory, the
-              N ≫ dense-HBM story (65k one chip; parallel/dist_iterative
-              multiplies by the mesh).  Stochastic logdet — opt-in only.
-
-The round-2..4 `fastgrad` engine (bf16 fused forward + explicit-K⁻¹ custom
-VJP) was REMOVED in round 5: it lost to lazy for training (625 vs 141
-ms/step, BASELINE.md round 3) and its one remaining justification —
-pairing a non-differentiable forward with analytic reverse sweeps — is
-exactly what ops/panel_engine now does with a faster forward.
+              plain autodiff; never materializes the N×N Gram.  Opt-in:
+              faster per value+grad on an H100 at N=16k but slower to
+              compile (PERF.md), and a non-PD K gives NaN, not jitter.
+  iterative — matrix-free CG + SLQ (ops/iterative): O(N·block) memory, for
+              N past what a dense Gram fits in device memory
+              (parallel/dist_iterative multiplies that by the mesh).
+              Stochastic logdet — opt-in only.
 """
 
 from __future__ import annotations
+
+ENGINES = ("dense", "lazy", "iterative")
 
 
 def evidence_base() -> int:
@@ -47,24 +39,15 @@ def evidence_splits(n: int) -> bool:
 
 
 def evidence_mode(default: str = "dense") -> str:
-    """Explicit engine selection — GPC_TPU_EVIDENCE = dense | lazy | panel |
+    """Explicit engine selection — GPC_TPU_EVIDENCE = dense | lazy |
     iterative (see module docstring).  Callers should resolve through
-    `select_evidence_mode(n)`, which handles the shape fallback and the
-    backend-aware default."""
+    `select_evidence_mode(n)`, which handles the shape fallback."""
     import os
     v = os.environ.get("GPC_TPU_EVIDENCE", default).lower()
-    if v not in ("dense", "lazy", "iterative", "panel"):
+    if v not in ENGINES:
         raise ValueError(
-            f"GPC_TPU_EVIDENCE={v!r} (want dense|lazy|panel|iterative)")
+            f"GPC_TPU_EVIDENCE={v!r} (want {'|'.join(ENGINES)})")
     return v
-
-
-# Largest N where the dense route's single N-wide triangular solve is known
-# safe on the TPU compile helper (it crashes at N≳16k — CLAUDE.md round 3).
-# Below this, `dense` is the UNIVERSAL unset-flag default on every backend —
-# N=4096 and N=4100 run the same engine out of the box; the backend-aware
-# auto-`lazy` kicks in only past it, where dense is not a viable default.
-DENSE_SAFE_N = 8192
 
 
 def select_evidence_mode(n: int) -> str:
@@ -72,28 +55,16 @@ def select_evidence_mode(n: int) -> str:
     models/gplvm.py call this).  An explicit GPC_TPU_EVIDENCE always wins —
     with a visible warning + dense fallback when the lazy engine's shape
     requirement (n splits into `evidence_base()` blocks) is unmet.  When
-    the flag is UNSET the default is `dense` everywhere up to DENSE_SAFE_N;
-    only past that, on a non-CPU backend with a splitting n, does it
-    default to `lazy`.  Note lazy's failure semantics differ: transiently
-    non-PD K yields a NaN objective (SCG step rejection) instead of dense's
-    jitter re-escalation.  `iterative`/`panel` have no split requirement
-    and are never auto-selected — opt-in only (stochastic logdet /
-    forward-optimized engine respectively)."""
-    import os
+    the flag is UNSET the engine is `dense`.  Note lazy's failure semantics
+    differ: transiently non-PD K yields a NaN objective (SCG step
+    rejection) instead of dense's jitter re-escalation.  `iterative` has
+    no split requirement."""
     import warnings
 
-    explicit = os.environ.get("GPC_TPU_EVIDENCE")
     mode = evidence_mode()
     if mode == "lazy" and not evidence_splits(n):
-        if explicit:
-            warnings.warn(
-                f"GPC_TPU_EVIDENCE={mode} needs n_data to split into "
-                f"{evidence_base()} blocks (got N={n}); falling back to "
-                f"dense")
+        warnings.warn(
+            f"GPC_TPU_EVIDENCE={mode} needs n_data to split into "
+            f"{evidence_base()} blocks (got N={n}); falling back to dense")
         return "dense"
-    if explicit is None and mode == "dense":
-        import jax as _jax
-        if (n > DENSE_SAFE_N and _jax.default_backend() != "cpu"
-                and evidence_splits(n)):
-            return "lazy"
     return mode

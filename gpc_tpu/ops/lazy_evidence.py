@@ -2,28 +2,28 @@
 
 The bench pipeline (and CGp::logLikelihood's hot block, CGp.cpp:920-937) is
     K = kernel-Gram(X);  L = chol(K + noise·I);  logdet + ‖L⁻¹m‖².
-Materializing K first costs a full N² HBM write + read (~1 GB at N=16k f32,
-~12 ms of a ~55 ms pipeline) before the factorization even starts.  But the
+Materializing K first costs a full N² write + read of device memory (1 GB at
+N=16k f32) before the factorization even starts.  But the
 blocked right-looking recursion (ops/chol_blocked.py) reads every *raw* K
 element exactly once — diagonal blocks when their sub-factorization starts,
 off-diagonal panels when their triangular solve runs.  So instead of a dense
 K we pass a *block thunk* `kfn(i0, j0, bi, bj) -> K-block` and let each block
 materialize at its point of first use; XLA fuses the distance map + covariance
 elementwise chain straight into the consuming GEMM/solve, and the separate
-Gram pass (with its HBM round-trip) disappears from the schedule.
+Gram pass (with its device-memory round trip) disappears from the schedule.
 
 The log-determinant is accumulated from leaf diagonals during the recursion,
 so when the caller needs only (logdet, quad) the full assembled L is dead code
 and XLA elides its O(N²) final concatenation too.
 
-Forward-only fast path (bench/prediction); parity/training paths keep the
-dense differentiable route in models/gp.py.
+The engines here are plain jnp and differentiable; models/gp.py and
+models/gplvm.py run `kern_evidence_lazy` when GPC_TPU_EVIDENCE=lazy selects
+the lazy engine (ops/evidence_mode.py).
 """
 
 from __future__ import annotations
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.scipy.linalg import solve_triangular
@@ -70,7 +70,7 @@ def evidence_fused_lazy(kfn, n, m):
 
 
 def rbf_block_fn(X, inv_width, variance, noise):
-    """Block thunk for the RBF Gram + noise·I — the bench kernel.
+    """Block thunk for the RBF Gram + noise·I.
 
     Diagonal elements only ever appear in blocks with i0 == j0 (the recursion
     splits diagonally), so the noise ridge is added there alone.
@@ -216,7 +216,7 @@ def kern_evidence_lazy(kern, p, X, m, ridge=0.0, force=False):
     the factorization — the general-kernel version of `rbf_evidence_lazy`.
 
     Differentiable (the stacked left-looking engine in ops/evidence_fast
-    with leafinv off is pure jnp), so large-N GP-LVM NLMLs can jax.grad
+    is pure jnp), so large-N GP-LVM NLMLs can jax.grad
     through it.  GPC_TPU_BF16_EVIDENCE=1 opts the O(N³) update GEMMs into
     bf16-input/f32-accum — with the rank-1 bias component split off
     analytically (see `bias_split`; GPC_TPU_BIAS_SPLIT=0 disables), the
@@ -228,9 +228,8 @@ def kern_evidence_lazy(kern, p, X, m, ridge=0.0, force=False):
     from gpc_tpu.ops.evidence_mode import evidence_base
 
     n = X.shape[0]
-    on_tpu = jax.default_backend() != "cpu"
     base = evidence_base()  # ONE resolution point, shared with the models'
-    if (force or on_tpu) and n > 2 * base and n % base == 0:
+    if force and n > 2 * base and n % base == 0:
         from gpc_tpu.ops.evidence_fast import Policy, evidence_left_fast
         bf16 = os.environ.get("GPC_TPU_BF16_EVIDENCE", "0") == "1"
         # prestack: node-level corr arrays (O(N²·log) AD residuals) instead
@@ -254,14 +253,11 @@ def kern_evidence_lazy(kern, p, X, m, ridge=0.0, force=False):
 
 def rbf_evidence_lazy(X, m, inv_width, variance, noise, force=False):
     """logdet + quad for K = rbf(X) + noise·I, Gram tiles fused into the
-    factorization schedule.  Falls back to the dense fused sweep when the
-    size doesn't split cleanly (or off-TPU, unless forced by tests)."""
+    factorization schedule when forced and the size splits cleanly into
+    BASE leaves; otherwise the dense Gram and the library factorization."""
     n = X.shape[0]
-    on_tpu = jax.default_backend() != "cpu"
-    if (force or on_tpu) and n > 2 * BASE and n % BASE == 0:
+    if force and n > 2 * BASE and n % BASE == 0:
         kfn = rbf_block_fn(X, inv_width, variance, noise)
-        # left-looking (fully lazy) measured fastest at N=16k:
-        # 65.1 ms vs 71.9 (right-looking lazy) vs 78.6 (dense) per evaluation
         logdet, quad, _L = evidence_fused_left(kfn, n, m)
         return logdet, quad
     from gpc_tpu.ops.chol_blocked import evidence_fused

@@ -3,18 +3,18 @@
 The scale-out answer to the reference's O(N³) wall (SURVEY.md §5: "blockwise
 Gram construction + distributed blocked Cholesky" is this framework's analogue
 of ring attention).  K never exists on one chip: device d owns the row block
-K[d·B:(d+1)·B, :], so N is bounded by per-device HBM at O(N·B) instead of
+K[d·B:(d+1)·B, :], so N is bounded by per-device memory at O(N·B) instead of
 O(N²).
 
 Panel sweep (W = B columns per panel, nb = n_devices panels):
   for j in 0..nb-1:
     1. every device contributes its B×B slice of column-panel j;
        `all_gather` assembles the full (N, B) panel — the only communication,
-       N·B floats per step over ICI (Σ = N² total, same volume as gathering K
+       N·B floats per step over the interconnect (Σ = N² total, same volume as gathering K
        once, but peak memory stays O(N·B));
     2. replicated small work: L_jj = chol(panel[jB:(j+1)B]), then
        L_panel = panel · L_jj⁻ᵀ with rows < jB zeroed (they're already final);
-    3. each device's trailing update is one local MXU GEMM:
+    3. each device's trailing update is one local GEMM:
        S_local[:, k>jB] −= L_local_panel · L_panel[k rows]ᵀ
     4. each device writes its rows of the finished panel into its block.
 

@@ -18,7 +18,7 @@ Structure (round 2 — the sweeps moved into the reusable custom VJP of
   wrapper  plain jax.value_and_grad over the composition.
 
 Per-device memory O(N·B); total communication O(N²) spread over panel gathers
-(ICI); all O(N³) work is local MXU GEMMs/solves.  Gradients match the
+(NVLink between a host's cards); all O(N³) work is local GEMMs/solves.  Gradients match the
 AD-based single-chip path to float tolerance (tests/test_dist_ftc.py).
 """
 

@@ -1,17 +1,18 @@
 """Distributed GP likelihoods: row-block sharded data, psum-reduced evidence.
 
-The TPU-native scale-out the reference never had (SURVEY.md §2.15, §5).  Two
+The scale-out the reference never had (SURVEY.md §2.15, §5).  Two
 mathematically-natural decompositions:
 
 * **Sparse (DTC/DTCVAR/FITC)** — the "TP analogue": inducing inputs X_u (M rows)
   replicated, data rows sharded.  Each device computes its K_uf slab and local
-  moments; the M×M quantities A = (1/β)K_uu + K_uf·D⁻¹·K_fu, e = K_uf·D⁻¹·m and
-  scalar traces reduce with `psum` over ICI; the collapsed evidence
+  moments; the L_uu-whitened M×M quantities Am = I/β + V·D⁻¹·Vᵀ (V =
+  L_uu⁻¹K_uf), e = V·D⁻¹·m and scalar traces reduce with `psum` over the
+  interconnect; the collapsed evidence
   (CGp.cpp:939-988 forms) is then evaluated replicated.  Per-device cost
   O(N_local·M·q + M³), communication O(M²) — weak-scales in N.
 
 * **FTC** — row-block Gram construction sharded (each device computes its
-  N_local×N block of K on its MXU), `all_gather` assembles K for a replicated
+  N_local×N block of K locally), `all_gather` assembles K for a replicated
   Cholesky.  Gram is the O(N²q) term; the O(N³) Cholesky stays replicated in
   round 1 (distributed panel Cholesky is the planned upgrade).
 
@@ -65,7 +66,7 @@ def make_dist_objective(spec: GpSpec, mesh: Mesh, bias, fixed_scales,
             # full X via all_gather of row blocks (needed for cross-tiles)
             Xg = lax.all_gather(Xl, DATA_AXIS, tiled=True)
             maskg = lax.all_gather(maskl, DATA_AXIS, tiled=True)
-            # this device's row-block of the Gram matrix — local MXU work
+            # this device's row-block of the Gram matrix — local work
             K_rows = spec.kern.compute(kp, Xl, Xg)
             K = lax.all_gather(K_rows, DATA_AXIS, tiled=True)
             # symmetric diagonal discipline + white + padding knockout
@@ -92,32 +93,36 @@ def make_dist_objective(spec: GpSpec, mesh: Mesh, bias, fixed_scales,
             K_uu = spec.kern.gram(kp, X_u)                 # replicated
             K_ufl = spec.kern.compute(kp, X_u, Xl) * maskl[None, :]
             L_uu, _ = linalg.jitchol(K_uu)
-            logdet_uu = linalg.chol_logdet(L_uu)
 
             if spec.approx in (DTC, DTCVAR):
-                KK = lax.psum(K_ufl @ K_ufl.T, DATA_AXIS)
-                e = lax.psum(K_ufl @ ml, DATA_AXIS)
+                # the L_uu-whitened form of models/gp.py: A = L_uu·Am·L_uuᵀ
+                # with Am = I/β + V·Vᵀ, V = L_uu⁻¹K_uf — the same quantity
+                # at cond(Am) ≪ cond(A); factoring A directly loses ~1e-5
+                # of the float32 evidence at N=16k, M=1024 (PERF.md)
+                Vl = linalg.tri_solve(L_uu, K_ufl)
+                Am = (jnp.eye(M, dtype=Vl.dtype) / beta
+                      + lax.psum(Vl @ Vl.T, DATA_AXIS))
+                e = lax.psum(Vl @ ml, DATA_AXIS)
                 mm = lax.psum(jnp.sum(ml * ml), DATA_AXIS)
-                A = K_uu / beta + KK
-                L_A, _ = linalg.jitchol(A)
-                logdetA = linalg.chol_logdet(L_A)
-                quad = jnp.sum(e * linalg.chol_solve(L_A, e))
-                Lacc = D * ((M - N) * jnp.log(beta) - logdet_uu + logdetA)
+                L_m, _ = linalg.jitchol(Am)
+                quad = jnp.sum(jnp.square(linalg.tri_solve(L_m, e)))
+                Lacc = D * ((M - N) * jnp.log(beta)
+                            + linalg.chol_logdet(L_m))
                 Lacc = Lacc - beta * (quad - mm)
                 if spec.approx == DTCVAR:
                     diagKl = spec.kern.diag(kp, Xl) * maskl
-                    Vl = linalg.chol_solve(L_uu, K_ufl)
-                    tr = lax.psum(jnp.sum(Vl * K_ufl), DATA_AXIS)
+                    tr = lax.psum(jnp.sum(Vl * Vl), DATA_AXIS)
                     trK = lax.psum(jnp.sum(diagKl), DATA_AXIS)
                     Lacc = Lacc + D * beta * (trK - tr)
             else:  # FITC
                 diagKl = spec.kern.diag(kp, Xl)
-                V0l = linalg.chol_solve(L_uu, K_ufl)
-                diagQl = jnp.sum(V0l * K_ufl, axis=0)
+                # one whitening solve serves diagQ and V (models/gp.py)
+                Wl = linalg.tri_solve(L_uu, K_ufl)
+                diagQl = jnp.sum(Wl * Wl, axis=0)
                 diagDl = jnp.where(maskl > 0, 1.0 + beta * (diagKl - diagQl), 1.0)
                 Dinvl = 1.0 / diagDl
                 scaledMl = ml * jnp.sqrt(Dinvl)[:, None]
-                Vl = linalg.tri_solve(L_uu, K_ufl) * jnp.sqrt(Dinvl)[None, :]
+                Vl = Wl * jnp.sqrt(Dinvl)[None, :]
                 Am = jnp.eye(M, dtype=Vl.dtype) / beta + lax.psum(Vl @ Vl.T, DATA_AXIS)
                 L_m, _ = linalg.jitchol(Am)
                 bet = lax.psum(linalg.tri_solve(L_m, Vl) @ scaledMl, DATA_AXIS)

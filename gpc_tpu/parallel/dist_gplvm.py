@@ -3,7 +3,7 @@ evidence.
 
 The reference GP-LVM is explicitly capped at ~1k points (no sparsification in
 the C++ GP-LVM, /root/reference/README.md:412-414).  This module removes the
-wall the TPU way: the latent coordinates live in the replicated θ vector
+wall by sharding: the latent coordinates live in the replicated θ vector
 (CGplvm's own layout, CGplvm.cpp:257-330), each device builds the Gram ROWS
 for its slice of latent points, and the row-sharded evidence runs through
 `parallel.chol_distributed.evidence_distributed`, whose custom VJP returns

@@ -1,17 +1,15 @@
 """Row-sharded matrix-free evidence: distributed kernel MVM + CG + SLQ.
 
-Round-4 state: the matrix-free engine (ops/iterative.py — BBMM-style CG quad
-+ SLQ logdet, N=65,536 value+grad 3.95 s on ONE chip) and the distributed
-paths (parallel/dist_*) were two separate worlds, capping the N-scaling
-mandate at one chip's HBM-and-FLOPs.  This module row-shards the kernel MVM
-over the "dp" mesh so the ceiling multiplies by the mesh size with zero new
-math (VERDICT r4 ask #2):
+The matrix-free engine (ops/iterative.py — BBMM-style CG quad + SLQ logdet)
+alone is capped at one card's memory and FLOPs.  This module row-shards the
+kernel MVM over the "dp" mesh so the ceiling multiplies by the mesh size with
+zero new math:
 
   * each device holds a row block X_l (N/P, q) and computes its rows of
     K·V — the O(N²·block) GEMM work — against the all-gathered X;
   * one `all_gather` of the (N/P, D′) partial result per MVM reassembles
     the replicated vector (O(N·D′) bytes — negligible next to the local
-    O(N²/P) FLOPs, and it rides ICI);
+    O(N²/P) FLOPs, and it rides the interconnect);
   * CG/Lanczos vector arithmetic runs REPLICATED on every device from the
     mesh-deterministic gathered results (the same replicated-scalar
     discipline as the SCG trajectory, parallel/mesh.py), so the iteration

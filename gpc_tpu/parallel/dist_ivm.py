@@ -13,7 +13,7 @@ is row-sharded over the "dp" mesh axis, while the O(d) site state
                     reproduces the single-chip jnp.argmax exactly (device
                     order == global row order);
   selected-row pulls (x*, y*, mu*, vs*, nu*, g*, M column a) — psum of
-                    owner-masked rows: O(q + D + C·d) bytes over ICI/DCN
+                    owner-masked rows: O(q + D + C·d) bytes over the interconnect
                     per step, the only communication besides the argmax;
   s-column + moment refresh — pure local rank-1 work on each shard's rows;
   nu/g refresh    — local (the noise models are row-elementwise).

@@ -10,15 +10,16 @@ and every large object is 2-D-block resident:
 
     K_uf block   (M/mp, N/dp)   per device — the memory headline: M can grow
                                  with the mp axis instead of being replicated
-    K_uu, A      (M/mp, M)      row-block sharded over mp (replicated over dp)
+    K_uu, Am     (M/mp, M)      row-block sharded over mp (replicated over dp)
     factors      row-block sharded, via the distributed panel Cholesky
                                  (parallel/chol_distributed._local_factor_step
                                   running over the "mp" axis)
     e = K_uf·m   (M/mp, D)      psum over dp
 
 The collapsed DTC evidence (CGp::logLikelihood, reference CGp.cpp:939-961)
-needs only logdet(K_uu), logdet(A) and eᵀA⁻¹e; the two logdets come from the
-distributed factors' diagonals and the quadratic form from a distributed
+is taken in the L_uu-whitened form of models/gp.py: logdet(Am) and
+‖L_m⁻¹·W·m‖² with Am = I/β + W·Wᵀ, W = L_uu⁻¹·K_uf; the logdet comes from
+the distributed factor's diagonal and the quadratic form from a distributed
 forward substitution (panel sweep, Θ(M²/mp) per device).
 
 Everything is jax.grad-differentiable: the panel sweeps are fori_loops of
@@ -151,26 +152,25 @@ def make_dist2d_objective(spec: GpSpec, mesh: Mesh, bias, fixed_scales,
         K_uu_rows = jnp.where(own, diag_uu[:, None], K_uu_rows)  # symmetric diag discipline
         K_ufl = spec.kern.compute(kp, X_u_l, Xl) * maskl[None, :]  # (Mb, Nl)
 
-        L_uu_rows, logdet_uu = _chol_rows(K_uu_rows, n_mp, Mb, M)
+        L_uu_rows, _logdet_uu = _chol_rows(K_uu_rows, n_mp, Mb, M)
 
         if spec.approx in ("dtc", "dtcvar"):
-            # e and mᵀm reductions over data shards
-            e_l = lax.psum(K_ufl @ ml, DP_AXIS)                  # (Mb, D)
+            # the L_uu-whitened form of models/gp.py: Am = I/β + W·Wᵀ with
+            # W = L_uu⁻¹·K_uf, so logdet A − logdet K_uu = logdet Am at
+            # cond(Am) ≪ cond(A) (factoring A directly loses float32 digits)
+            W_l = _fwd_solve_rows(L_uu_rows, K_ufl, n_mp, Mb)    # (Mb, Nl)
+            Am_rows = (_ring_gram_rows(W_l, n_mp, Mb, M, r)
+                       + own.astype(W_l.dtype) / beta)
+            L_m_rows, logdet_m = _chol_rows(Am_rows, n_mp, Mb, M)
+            e_l = lax.psum(W_l @ ml, DP_AXIS)                    # (Mb, D)
             mm = lax.psum(jnp.sum(ml * ml), DP_AXIS)
-            # A = (1/β)K_uu + K_uf·K_fu (updateAD, CGp.cpp:770-773), row-block
-            # assembled by an mp-ring so only one remote chunk is live
-            KK_rows = _ring_gram_rows(K_ufl, n_mp, Mb, M, r)
-            A_rows = K_uu_rows / beta + KK_rows
-            L_A_rows, logdetA = _chol_rows(A_rows, n_mp, Mb, M)
-            v_l = _fwd_solve_rows(L_A_rows, e_l, n_mp, Mb)
+            v_l = _fwd_solve_rows(L_m_rows, e_l, n_mp, Mb)
             quad = lax.psum(jnp.sum(v_l * v_l), MP_AXIS)
 
-            Lacc = D * ((M - N) * jnp.log(beta) - logdet_uu + logdetA)
+            Lacc = D * ((M - N) * jnp.log(beta) + logdet_m)
             Lacc = Lacc - beta * (quad - mm)
             if spec.approx == "dtcvar":
-                # trace penalty D·β·Σ(diagK − diagQ) (CGp.cpp:954-955);
-                # diagQ via the distributed W = L_uu⁻¹·K_uf forward solve
-                W_l = _fwd_solve_rows(L_uu_rows, K_ufl, n_mp, Mb)
+                # trace penalty D·β·Σ(diagK − diagQ) (CGp.cpp:954-955)
                 diagQ = lax.psum(jnp.sum(W_l * W_l, axis=0), MP_AXIS)
                 diagK = spec.kern.diag(kp, Xl)
                 dD_l = beta * (diagK - diagQ) * maskl

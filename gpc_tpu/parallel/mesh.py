@@ -2,8 +2,9 @@
 
 The reference is strictly single-process single-thread (SURVEY.md §2.15); this
 module supplies the communication backend the rebuild introduces: a 1-D data
-mesh (axis "dp") over all devices — chips within a host ride ICI, hosts ride
-DCN via jax.distributed — with row-block sharding of (X, y) and psum-reduced
+mesh (axis "dp") over all devices — the cards of a host are joined all to
+all by NVLink, so the mesh follows the algorithm alone; hosts join via
+jax.distributed — with row-block sharding of (X, y) and psum-reduced
 likelihood terms.  The SCG control flow stays replicated: every device computes
 identical line-search scalars from mesh-deterministic reductions.
 """

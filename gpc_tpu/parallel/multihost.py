@@ -5,9 +5,13 @@ module supplies the multi-HOST half of the rebuild's communication stack (the
 multi-chip half is parallel/mesh.py + the shard_map kernels):
 
 * `initialize_from_env()` — `jax.distributed.initialize` driven by env vars,
-  so the same CLI invocation works on every host of a pod slice:
+  so the same CLI invocation works in every process of the group:
       GPC_TPU_COORDINATOR=host0:8476 GPC_TPU_NUM_PROCS=4 GPC_TPU_PROC_ID=$i
-  (or the cloud-TPU auto-detection path when none are set).
+  All three are required: nothing detects a cluster on its own.  When
+  several processes share one host's GPUs, GPC_TPU_LOCAL_DEVICES pins each
+  to its own cards (a comma list of local device ids, e.g. `0` for the
+  first process and `1` for the second): a JAX process reserves most of
+  every card it opens.
 * `load_svml_sharded(path, mesh)` — each process parses ONLY its own row
   slice of an SVM-light file and contributes it to a single global row-sharded
   `jax.Array` via `make_array_from_process_local_data`; no host ever
@@ -43,11 +47,17 @@ def initialize_from_env() -> bool:
     nproc = os.environ.get("GPC_TPU_NUM_PROCS")
     pid = os.environ.get("GPC_TPU_PROC_ID")
     if coord is None and nproc is None:
-        return False  # single-process (or TPU auto-detect handled by caller)
+        return False  # single-process
+    if coord is None or nproc is None or pid is None:
+        raise ValueError("GPC_TPU_COORDINATOR, GPC_TPU_NUM_PROCS and "
+                         "GPC_TPU_PROC_ID must all be set")
+    local = os.environ.get("GPC_TPU_LOCAL_DEVICES")
     jax.distributed.initialize(
         coordinator_address=coord,
-        num_processes=int(nproc) if nproc is not None else None,
-        process_id=int(pid) if pid is not None else None,
+        num_processes=int(nproc),
+        process_id=int(pid),
+        local_device_ids=(None if local is None
+                          else [int(i) for i in local.split(",")]),
     )
     _INITIALIZED = True
     return jax.process_count() > 1

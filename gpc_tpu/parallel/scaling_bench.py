@@ -1,11 +1,10 @@
 """Weak-scaling measurement harness for the distributed GP evidence.
 
-BASELINE.json target: ≥70% weak-scaling efficiency at 2+ hosts.  This harness
-measures time-per-evidence-evaluation for the sharded DTC objective with
-N proportional to device count (weak scaling: constant per-device rows).
-On a real pod slice run it under `jax.distributed`; on a single host it uses
-however many devices the backend exposes (virtual CPU devices in tests), which
-exercises the identical pjit/shard_map program and collectives.
+This harness measures time-per-evidence-evaluation for the sharded DTC
+objective with N proportional to device count (weak scaling: constant
+per-device rows).  It uses however many devices the backend exposes (the
+cards of one host, or virtual CPU devices in tests), which exercises the
+identical pjit/shard_map program and collectives.
 
 Run: python -m gpc_tpu.parallel.scaling_bench [rows_per_device] [num_active]
 Prints one JSON line per device count: {devices, n, t_ms, efficiency}.
@@ -15,7 +14,6 @@ from __future__ import annotations
 
 import json
 import sys
-import time
 
 import numpy as np
 import jax
@@ -25,10 +23,7 @@ from gpc_tpu import kernels as K
 from gpc_tpu.models.gp import GP
 from gpc_tpu.parallel.mesh import data_mesh, pad_rows, shard_rows
 from gpc_tpu.parallel.dist_gp import make_dist_objective
-
-
-def _sync(x):
-    return float(jnp.ravel(x)[0])
+from gpc_tpu.utils.profiling import time_fn
 
 
 _DTYPE_BYTES = {"f64": 8, "f32": 4, "bf16": 2, "f16": 2, "s32": 4, "u32": 4,
@@ -43,10 +38,9 @@ def collective_stats(fn, *args):
     reduce-scatter / all-to-all).  Counts are STATIC occurrences — a
     collective inside a `while` body counts once; report the trip count
     alongside when the schedule loops (e.g. the n_dev panel sweeps of
-    chol_distributed).  This is the checkable weak-scaling proxy BASELINE.md
-    asks for on rigs without real multi-chip hardware: communication volume
-    and collective mix are mesh-shape properties the virtual CPU mesh shares
-    with a pod slice."""
+    chol_distributed).  This is a checkable weak-scaling proxy that needs no
+    cards: communication volume and collective mix are mesh-shape properties
+    the virtual CPU mesh shares with a multi-card mesh."""
     import re
 
     txt = jax.jit(fn).lower(*args).compile().as_text()
@@ -55,9 +49,9 @@ def collective_stats(fn, *args):
     # XLA's all-reduce combiner merges collectives into TUPLE-shaped ops
     # ("= (f32[8], f32[]) all-reduce(...)"), which a single-shape regex
     # silently skips (undercounting the census)
-    # "-start" variants: TPU post-optimization HLO wraps collectives as
-    # async start/done pairs — count the starts (dropping them would report
-    # an empty census on exactly the hardware this characterizes)
+    # "-start" variants: accelerator post-optimization HLO wraps collectives
+    # as async start/done pairs — count the starts (dropping them would
+    # report an empty census on exactly the hardware this characterizes)
     line_pat = re.compile(
         r"=\s+(\([^)]*\)|\S+)\s+"
         r"(all-gather|all-reduce|collective-permute|reduce-scatter|"
@@ -119,8 +113,7 @@ def weak_scaling_artifact(n_devices: int, rows_per_device: int = 128,
                      "communication volume scales as N^2 = (rows_per_device"
                      "*n_devices)^2 while per-device compute scales as "
                      "N^3/n_devices - the comm:compute ratio falls as "
-                     "3/rows_per_device, the basis of the >=70% weak-scaling "
-                     "target on real ICI"),
+                     "3/rows_per_device"),
         },
         "iterative_weak_scaling_proxy": _iterative_proxy(
             n_devices, rows_per_device, q, kern, model, mesh, Xs, ys, ms),
@@ -179,15 +172,8 @@ def run(rows_per_device: int = 2048, num_active: int = 256, q: int = 8,
         Xs, ys, ms = (shard_rows(mesh, a) for a in (Xp, yp, mask))
         nlml = jax.jit(jax.value_and_grad(make_dist_objective(
             model.spec, mesh, model.bias, model.fixed_scales, N)))
-        v, g = nlml(model.theta, Xs, ys, ms)
-        _sync(v)  # compile + warm
         reps = 5
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            v, g = nlml(model.theta, Xs, ys, ms)
-        _sync(v)
-        _sync(g)
-        t = (time.perf_counter() - t0) / reps
+        t = time_fn(nlml, model.theta, Xs, ys, ms, reps=reps)
         if t1 is None:
             t1 = t
         eff = t1 / t  # weak scaling: ideal is equal time per step

@@ -1,6 +1,6 @@
 """Parameter priors (regularizers) on constrained parameters.
 
-TPU-native counterpart of the reference's `CDist.{h,cpp}` (CDist.h:134-367).
+JAX counterpart of the reference's `CDist.{h,cpp}` (CDist.h:134-367).
 A prior is a lightweight static description `(kind, hyperparams)` attached to a
 parameter index; its log-probability is *added* to the model log-likelihood
 (CRegularisable::priorLogProb) so that `jax.grad` of the objective reproduces the

@@ -1,17 +1,15 @@
-"""Batch prediction server: factor once, serve chunks at MXU speed.
+"""Batch prediction server: factor once, serve padded batches.
 
 The reference recomputes its posterior state lazily behind dirty flags and
 serves one request at a time through LAPACK (CGp::posteriorMeanVar +
 updateAlpha, /root/reference/CGp.cpp:469-663).  For production serving the
-TPU-native decomposition is explicit:
+decomposition is explicit:
 
-  factor (once)  — K's Cholesky, α = K⁻¹m, and (on TPU) the blocked
-                   explicit L⁻¹, so every per-batch variance solve is a
-                   pure MXU GEMM (measured AT the session matmul roofline:
-                   177 TF/s on the 2·N²·T solve-GEMMs, 18 M mean-only
-                   predictions/s at N=16k — BASELINE.md round 3);
+  factor (once)  — K's Cholesky, α = K⁻¹m, and (with explicit_inverse) the
+                   blocked explicit L⁻¹, so every per-batch variance solve is
+                   a GEMM;
   serve (per batch) — one jitted program per padded batch shape: cross-Gram
-                   tiles + GEMMs.  Requests are padded to power-of-two
+                   tiles + GEMMs/solves.  Requests are padded to power-of-two
                    BUCKETS capped at `chunk` (then split into chunk-sized
                    pieces), so the compiled-program set is bounded at
                    log2(chunk) shapes and a stream of varied small online
@@ -22,8 +20,6 @@ per-batch work is M-sized triangular solves, already cheap.
 """
 
 from __future__ import annotations
-
-from typing import Optional
 
 import numpy as np
 import jax
@@ -36,19 +32,18 @@ from gpc_tpu.models.gp import GP, posterior_apply, posterior_state
 class GPServer:
     """One-time-factored predictor for a trained `models.gp.GP`.
 
-    `chunk` fixes the compiled batch shape; `explicit_inverse` (default: on
-    for TPU backends, off for CPU/f64 parity) stores L⁻¹ at factor time.
+    `chunk` fixes the compiled batch shape; `explicit_inverse` stores L⁻¹
+    at factor time (FTC only).  Off by default: on an H100 at N=16k it
+    doubles the factor time and serves large batches slower, winning only
+    single-point requests (PERF.md, "Bring-up findings").
     `predict` matches `GP.predict` to numerical precision (pinned in
     tests/test_serving.py) for any request size, including ragged tails.
     """
 
     def __init__(self, model: GP, chunk: int = 8192,
-                 explicit_inverse: Optional[bool] = None, mesh=None):
+                 explicit_inverse: bool = False, mesh=None):
         self.spec = model.spec
         self.chunk = int(chunk)
-        if explicit_inverse is None:
-            explicit_inverse = (self.spec.approx == "ftc"
-                                and jax.default_backend() != "cpu")
         # multi-chip serving: prediction is embarrassingly parallel over the
         # batch dim — shard each chunk's rows over the mesh and let GSPMD
         # partition the cross-Gram + GEMMs (state replicated; collectives

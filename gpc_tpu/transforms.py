@@ -1,6 +1,6 @@
 """Constrained ↔ unconstrained parameter reparameterizations.
 
-TPU-native counterpart of the reference's `CTransform.{h,cpp}` (CTransform.h:20-150,
+JAX counterpart of the reference's `CTransform.{h,cpp}` (CTransform.h:20-150,
 CTransform.cpp:25-120).  The optimizer always works on the unconstrained vector `a`;
 models expose constrained parameters `x = atox(a)`.  Because gradients in this
 framework come from `jax.grad` through `atox`, the reference's explicit `gradfact`

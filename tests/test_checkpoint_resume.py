@@ -92,7 +92,7 @@ def test_run_optimiser_checkpoint_roundtrip(tmp_path):
     del r_half
 
 
-def test_cli_checkpoint_resume_matches_single_run(tmp_path):
+def test_cli_checkpoint_resume_matches_single_run(tmp_path, sinc_svml):
     """CLI-level: `gp learn --checkpoint f -# 30` then `--resume -# 60`
     writes the same learned hyperparameters as one 60-iteration run."""
     import contextlib
@@ -106,7 +106,7 @@ def test_cli_checkpoint_resume_matches_single_run(tmp_path):
             gp_cli.main(args)
         return buf.getvalue()
 
-    data = "/root/reference/examples/sinc.svml"
+    data = sinc_svml
     one = str(tmp_path / "one.model")
     two = str(tmp_path / "two.model")
     ck = str(tmp_path / "ck.npz")
@@ -173,7 +173,7 @@ def test_ivm_kill_and_resume_matches_uninterrupted(tmp_path):
                                   np.asarray(full.state.active_idx))
 
 
-def test_ivm_cli_checkpoint_resume(tmp_path):
+def test_ivm_cli_checkpoint_resume(tmp_path, twoclass_svml):
     """CLI-level `ivm learn -c f` then `-c f -r`: the resumed model file
     equals the uninterrupted one."""
     import contextlib
@@ -187,7 +187,7 @@ def test_ivm_cli_checkpoint_resume(tmp_path):
             ivm_cli.main(args)
         return buf.getvalue()
 
-    data = "/root/reference/examples/unitsquaregp.svml"
+    data = twoclass_svml
     one = str(tmp_path / "one.model")
     two = str(tmp_path / "two.model")
     ck = str(tmp_path / "ck.npz")

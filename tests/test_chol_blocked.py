@@ -76,33 +76,3 @@ def test_evidence_fused_matches_plain():
     np.testing.assert_allclose(float(quad), want_quad, rtol=1e-9)
     np.testing.assert_allclose(np.asarray(L) @ np.asarray(L).T, K, rtol=1e-8,
                                atol=1e-8 * N)
-
-
-def test_chol_inv_block_interpret():
-    # the fused Pallas (L, L⁻¹) leaf kernel, interpret mode on CPU
-    from gpc_tpu.ops.chol_pallas import chol_inv_block
-    n = 192  # non-multiple of UNROLL exercises the static remainder
-    A = _spd(n, 7)
-    L, M = chol_inv_block(jnp.asarray(A), interpret=True)
-    L, M = np.asarray(L), np.asarray(M)
-    np.testing.assert_allclose(L, np.linalg.cholesky(A), rtol=1e-9, atol=1e-9)
-    np.testing.assert_allclose(M @ L, np.eye(n), atol=1e-9)
-    assert np.allclose(np.triu(M, 1), 0.0)
-
-
-def test_pallas_base_paths_match(monkeypatch):
-    # GPC_TPU_PALLAS_BASE leaf-inverse recursion ≡ the plain recursion
-    monkeypatch.setattr(chol_blocked, "PALLAS_BASE", True)
-    rng = np.random.default_rng(13)
-    N, D = 768, 2
-    B = rng.standard_normal((N, N))
-    K = B @ B.T + N * np.eye(N)
-    m = rng.standard_normal((N, D))
-    L = np.asarray(chol_blocked.cholesky(jnp.asarray(K), force=True))
-    np.testing.assert_allclose(L, np.linalg.cholesky(K), rtol=1e-9, atol=1e-9)
-    logdet, quad, Lf = chol_blocked.evidence_fused(
-        jnp.asarray(K), jnp.asarray(m), force=True)
-    _, want_logdet = np.linalg.slogdet(K)
-    want_quad = np.trace(m.T @ np.linalg.solve(K, m))
-    np.testing.assert_allclose(float(logdet), want_logdet, rtol=1e-9)
-    np.testing.assert_allclose(float(quad), want_quad, rtol=1e-8)

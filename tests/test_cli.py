@@ -9,8 +9,16 @@ from gpc_tpu.cli import gp as gp_cli
 from gpc_tpu.cli import gplvm as gplvm_cli
 from gpc_tpu.cli import ivm as ivm_cli
 
-SINC = "/root/reference/examples/sinc.svml"
-OIL100 = "/root/reference/examples/oilTrain100.svml"
+import sys
+
+SINC = OIL100 = None  # seeded stand-ins, set per test by _data below
+
+
+@pytest.fixture(autouse=True)
+def _data(sinc_svml, oil100_svml, monkeypatch):
+    mod = sys.modules[__name__]
+    monkeypatch.setattr(mod, "SINC", sinc_svml)
+    monkeypatch.setattr(mod, "OIL100", oil100_svml)
 
 
 @pytest.fixture()

@@ -13,8 +13,6 @@ import pytest
 from gpc_tpu.cli import daemon
 
 
-SINC = "/root/reference/examples/sinc.svml"
-
 
 @pytest.fixture
 def daemon_env(tmp_path, monkeypatch):
@@ -30,7 +28,8 @@ def daemon_env(tmp_path, monkeypatch):
     daemon.stop()
 
 
-def test_daemon_learn_matches_oneshot(daemon_env, capsys):
+def test_daemon_learn_matches_oneshot(daemon_env, sinc_svml, capsys):
+    SINC = sinc_svml
     tmp = daemon_env
     mdl_d = tmp / "model_daemon"
     mdl_s = tmp / "model_oneshot"

@@ -1,9 +1,8 @@
 """Flat-buffer fused evidence (ops/evidence_fast.evidence_flat).
 
-The bench's first-choice headline engine: one persistent (n, n) factor
-buffer, strided-slice corrections, single tall dot per column.  Its only
-prior correctness gate ran on TPU inside bench.py's drift check — pin CPU
-parity here so schedule edits can't silently pass the suite.
+One persistent (n, n) factor buffer, strided-slice corrections, a single
+tall dot per column.  Pins CPU parity so schedule edits can't silently pass
+the suite.
 """
 
 import numpy as np

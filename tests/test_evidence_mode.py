@@ -1,7 +1,6 @@
 """Evidence-engine selection (ops/evidence_mode) + lazy-path behavior.
 
-Pins the engine contract after the round-5 pruning (four engines:
-dense/lazy/panel/iterative; fastgrad removed):
+Pins the engine contract (three engines: dense/lazy/iterative):
   * GPC_TPU_EVIDENCE=lazy on GP/GPLVM objectives ≡ dense at f64,
   * visible-warning dense fallback on non-splitting N,
   * NaN-objective SCG step rejection on a singular K (the lazy path's
@@ -29,7 +28,7 @@ def test_bad_mode_rejected(monkeypatch):
 
 
 def test_gplvm_lazy_mode_flag(monkeypatch):
-    """GPC_TPU_EVIDENCE=lazy (the recommended TPU training route): GPLVM
+    """GPC_TPU_EVIDENCE=lazy: GPLVM
     NLML value+grad ≡ dense at f64 — through the bias-split fast path."""
     from gpc_tpu.models.gplvm import GPLVM
 

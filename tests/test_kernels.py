@@ -187,7 +187,7 @@ def test_priors_reindexed_in_compound():
 def test_f32_gradients_finite_at_coincident_points():
     """The distance-kernel sqrt guard must survive f32: 1e-300 underflows
     to 0 there, and sqrt(0)'s infinite derivative NaN'd the whole gradient
-    whenever X contained duplicate rows (the TPU training dtype)."""
+    whenever X contained duplicate rows (the float32 training dtype)."""
     import jax
 
     X = jnp.asarray(np.array([[0.5, -1.0], [0.5, -1.0], [1.5, 2.0]]),

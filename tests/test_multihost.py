@@ -1,8 +1,8 @@
 """Real multi-PROCESS distributed test (2 OS processes, localhost coordinator).
 
 The virtual-8-device tests in test_parallel.py exercise the collectives inside
-one process; this spawns two actual jax.distributed processes — the thing a
-multi-host TPU pod slice does over DCN — and checks the host-sharded data
+one process; this spawns two actual jax.distributed processes — what a
+multi-host group does over the network — and checks the host-sharded data
 loading plus the psum-reduced FTC NLML against the single-process value.
 """
 
@@ -14,7 +14,6 @@ import sys
 import numpy as np
 import pytest
 
-SINC = "/root/reference/examples/sinc.svml"
 WORKER = os.path.join(os.path.dirname(__file__), "helpers", "multihost_worker.py")
 
 
@@ -26,7 +25,8 @@ def _free_port():
 
 @pytest.mark.skipif(os.environ.get("GPC_TPU_SKIP_MULTIPROC") == "1",
                     reason="multi-process test disabled")
-def test_two_process_ftc_nlml_matches_single_process():
+def test_two_process_ftc_nlml_matches_single_process(sinc_svml):
+    SINC = sinc_svml
     port = _free_port()
     procs = []
     for pid in range(2):

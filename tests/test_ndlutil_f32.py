@@ -1,6 +1,6 @@
 """f32 certification of the special-function fast path (ndlutil.py).
 
-The parity suite runs float64; on the TPU fast path probit/NCNM/ordered
+The parity suite runs float64; on the float32 accelerator path probit/NCNM/ordered
 evaluate these functions in float32, where erfcx switches to its 7-term
 asymptotic tail at |x| > 5 (vs 25 in f64).  These tests pin the f32 accuracy
 against the f64 implementation across the branch thresholds and deep tails.
